@@ -10,9 +10,9 @@ data:
 - **oracle**: float64 numpy, reference-exact semantics
   (``ssme_tpu.oracle`` — every-step multinomial resampling,
   ``estimate_univ_svol.h:108-178`` config);
-- **parity**: the Pallas megakernel at the reference-parity schedule
-  (systematic resampling every step, ess_threshold=1.0), f32, hardware
-  PRNG;
+- **parity**: the whole-filter kernel at the reference-parity schedule
+  (systematic resampling every step, ess_threshold=1.0), f32,
+  counter-based PRNG;
 - **adaptive**: the flagship ESS-gated schedule (ess_threshold=0.5) —
   the headline engine whose unbiasedness the gate certifies end-to-end.
 
@@ -21,8 +21,8 @@ asserts every pair of posterior means agrees within
 ``2 * combined batch-means MC-SE + slack`` per parameter.
 
 Oracle cost: ~0.1 s/iteration at T=3084, N=500, R=2 on this host
-(pure numpy) — 4000 iterations ~= 7 minutes.  The JAX engines run
-8 chains on the chip in seconds.
+(pure numpy) — 4000 iterations ~= 7 minutes.  The two kernel engines
+need a GPU.
 
 Run:  python examples/accuracy_gate.py --out data/accuracy_gate.json
 """
@@ -42,7 +42,7 @@ REF_START_Z = (1.0, 2.0 * np.arctanh(0.5), np.log(2e-4))
 
 
 MODE_START_Z = (0.849, 2.0 * np.arctanh(0.9744), np.log(0.0659))
-# transformed posterior mode (RESULTS.md posterior means)
+# transformed posterior mode (SPY posterior means of earlier runs)
 
 
 def run_oracle(ys, iters, n_particles, n_reps, seed, start="mode",
@@ -53,7 +53,7 @@ def run_oracle(ys, iters, n_particles, n_reps, seed, start="mode",
     reference start with the t1=1000 freeze leaves a single chain
     visibly under-mixed at 4000 iterations (first gate run: frozen
     burn-in-geometry Ct, beta z ~ -3 purely from optimistic batch-means
-    SE on an autocorrelated chain — see data/accuracy_gate_run1.json)."""
+    SE on an autocorrelated chain)."""
     from ssme_tpu.oracle import oracle_pmmh
 
     t0 = time.perf_counter()
@@ -71,11 +71,16 @@ def run_engine(ys, iters, n_particles, n_reps, ess, chains, seed):
 
     from ssme_tpu.inference import AdaptivePMMH
     from ssme_tpu.models import svol
-    from ssme_tpu.ops.svol_filter_kernel import svol_pallas_batched_log_like
+    from ssme_tpu.ops.filter_megakernel import (megakernel_log_like,
+                                                svol_kernel_model,
+                                                svol_param_rows)
+    from ssme_tpu.runtime import require_gpu
 
+    require_gpu("the accuracy gate's kernel engines")
     model = svol.make_model()
-    batched = svol_pallas_batched_log_like(n_particles, n_reps,
-                                           ess_threshold=ess)
+    batched = megakernel_log_like(svol_kernel_model(), n_particles, n_reps,
+                                  constrain=svol_param_rows,
+                                  ess_threshold=ess)
     pmmh = AdaptivePMMH(model, num_particles=n_particles,
                         num_replicates=n_reps, t0=150, t1=1000,
                         batched_log_like=batched)
@@ -152,14 +157,12 @@ def main():
     ap.add_argument("--out", default="data/accuracy_gate.json")
     args = ap.parse_args()
 
-    import jax
     import jax.numpy as jnp
 
     from ssme_tpu.io import read_data
+    from ssme_tpu.runtime import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    enable_compile_cache()
 
     data_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "..", "data", "spy_returns.csv")

@@ -1,16 +1,16 @@
 #!/usr/bin/env python
 """Multi-host dryrun: chain-sharded PMMH across 2 LOCAL PROCESSES.
 
-BASELINE.md's north-star row asks for scaling at ">= 2 hosts"; this rig
-has one host and one chip, so the multi-host path is validated the way
-the multi-chip path is (8 virtual CPU devices): two OS processes joined
-through ``jax.distributed`` over localhost stand in for two hosts over
-DCN.  The program is the pod recipe of ``ssme_tpu/parallel/distributed.py``
-verbatim — same code runs on a real TPU pod slice.
+BASELINE.md's north-star row asks for scaling at ">= 2 hosts"; the
+multi-host path is validated the way the multi-device path is (virtual
+CPU devices): two OS processes joined through ``jax.distributed`` over
+localhost stand in for two hosts.  The program is the cluster recipe of
+``ssme_tpu/parallel/distributed.py`` verbatim, with the coordinator
+address, process count and rank passed explicitly as on GPU hosts.
 
 Run (no args — forks its own workers):
 
-    PYTHONPATH=/root/repo python examples/dryrun_multihost.py
+    python examples/dryrun_multihost.py
 
 Each worker: 2 CPU devices -> global mesh 4 devices x 1, 4 chains (one
 per device, split across processes), 3 PMMH iterations on a tiny SVOL
@@ -38,7 +38,7 @@ PORT = int(os.environ.get("DRYRUN_PORT", 12973))
 
 
 def _build_and_run():
-    """The SPMD program: identical on every process (pod recipe)."""
+    """The SPMD program: identical on every process (cluster recipe)."""
     import jax
     import jax.numpy as jnp
     import numpy as np

@@ -11,14 +11,14 @@ sqrt(1-rho^2) eps, y ~ N(0, e^x), covariate z = LAGGED observation.
 Parameters (phi, mu, sigma, rho) with uniform priors on their supports;
 transforms keep the MH walk unconstrained.
 
-Engines: --engine pallas streams (ys, zs) through SMEM into the
-bootstrap megakernel factory instance (``ops/filter_megakernel.
-svol_leverage_kernel_model``), evaluating all chains x replicates per
-MH iteration in one launch; --engine generic is the XLA path (any
-platform).
+Engines: --engine kernel runs the whole-filter kernel's leverage
+instance (``ops/filter_megakernel.svol_leverage_kernel_model``), which
+loads (y_t, z_t) per step itself, evaluating all chains x replicates
+per MH iteration in one launch (needs a GPU); --engine generic is the
+XLA path (any platform).
 
-Run (TPU):
-    python examples/estimate_svol_leverage.py --engine pallas \
+Run (GPU):
+    python examples/estimate_svol_leverage.py --engine kernel \
         --iters 3000 --chains 16
 """
 
@@ -45,21 +45,16 @@ def main(argv=None):
     p.add_argument("--replicates", type=int, default=2)
     p.add_argument("--t-len", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--engine", choices=["generic", "pallas"],
+    p.add_argument("--engine", choices=["generic", "kernel"],
                    default="generic")
     p.add_argument("--out", default=None)
     p.add_argument("--burn", type=int, default=500)
-    p.add_argument("--gate-stride", type=int, default=1,
-                   help="kernel LSE/ESS check stride (pallas engine; "
-                        "8 = the measured 2.1x lever, docs/kernels.md)")
     p.add_argument("--tuned", action="store_true",
-                   help="measured leverage preset (VERDICT r4 item 4): "
-                        "C=64 chains, R=2 replicates (Doucet-Pitt "
-                        "variance band at N=512 — data/probe_resampler"
-                        ".jsonl leverage baseline), continuous "
-                        "adaptation with a warm restart after burn-in "
-                        "(AdaptivePMMH.reset_adaptation — the fix that "
-                        "took univ-SVOL from 2.3%% to 10.8%% accept)")
+                   help="leverage preset: C=64 chains, R=2 replicates "
+                        "(aiming at the Doucet-Pitt variance band at "
+                        "N=512), continuous adaptation with a warm "
+                        "restart after burn-in "
+                        "(AdaptivePMMH.reset_adaptation)")
     args = p.parse_args(argv)
     if args.tuned:
         args.chains = max(args.chains, 64)
@@ -69,10 +64,9 @@ def main(argv=None):
     from ssme_tpu.inference import AdaptivePMMH
     from ssme_tpu.io import read_data
     from ssme_tpu.models import svol_leverage
+    from ssme_tpu.runtime import enable_compile_cache, require_gpu
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    enable_compile_cache()
 
     data = args.datafile or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", "data",
@@ -95,14 +89,16 @@ def main(argv=None):
         (-0.95, 0.0),    # rho: leverage
     ))
     batched = None
-    if args.engine == "pallas":
-        if jax.devices()[0].platform != "tpu":
-            p.error("--engine pallas needs a real TPU")
+    if args.engine == "kernel":
+        try:
+            require_gpu("--engine kernel")
+        except RuntimeError as e:
+            p.error(str(e))
         from ssme_tpu.ops.filter_megakernel import (
             megakernel_log_like, svol_leverage_kernel_model)
         batched = megakernel_log_like(
             svol_leverage_kernel_model(), args.particles, args.replicates,
-            ess_threshold=0.5, gate_stride=args.gate_stride)
+            ess_threshold=0.5)
 
     pmmh = AdaptivePMMH(model, num_particles=args.particles,
                         num_replicates=args.replicates, t0=150, t1=10**9,
@@ -113,8 +109,8 @@ def main(argv=None):
 
     state = pmmh.init(jax.random.key(args.seed), start, ys, zs=zs,
                       num_chains=args.chains)
-    # run_from self-chunks above MAX_SCAN_ITERS (the worker-crash
-    # guard) — no manual 500-iteration jit loop needed
+    # run_from self-chunks above MAX_SCAN_ITERS — no manual jit loop
+    # needed
     burn = min(args.burn, args.iters)
     t0 = time.perf_counter()
     res_burn = pmmh.run_from(state, burn, ys, zs=zs)
@@ -143,7 +139,6 @@ def main(argv=None):
         "chains": args.chains, "N": args.particles,
         "R": args.replicates, "T": int(ys.shape[0]), "secs": secs,
         "tuned": bool(args.tuned),
-        "gate_stride": args.gate_stride,
         "accept": float(state.accept_ma.mean()),
         "posterior": stats,
     }

@@ -42,28 +42,18 @@ def main(argv=None):
     p.add_argument("--no-timestamp", action="store_true")
     p.add_argument("--checkpoint", default=None,
                    help="path to write a resumable chain checkpoint")
-    p.add_argument("--engine", choices=["generic", "pallas"],
+    p.add_argument("--engine", choices=["generic", "kernel"],
                    default="generic",
-                   help="pallas: evaluate ALL chains x replicates per "
-                        "MH iteration in one TPU megakernel launch "
-                        "(ESS-adaptive resampling; ~50x)")
-    p.add_argument("--gate-stride", type=int, default=1,
-                   help="kernel LSE/ESS check stride (pallas engine; "
-                        "8 = the measured 2.1x throughput lever at "
-                        "production scale — 18.8 vs 12.4 ESS/s on the "
-                        "10k-iteration SPY flagship; 16/32 run the "
-                        "kernel faster still but COLLAPSE PMMH "
-                        "acceptance via estimator variance — measured "
-                        "3.4 ESS/s at 16; docs/kernels.md)")
+                   help="kernel: evaluate ALL chains x replicates per MH "
+                        "iteration in one launch of the Triton "
+                        "whole-filter kernel (ESS-adaptive resampling; "
+                        "needs a GPU and a power-of-two --particles)")
     p.add_argument("--tuned", action="store_true",
-                   help="measured pseudo-marginal optimum instead of "
-                        "the reference constants: 64 chains x 2 PF "
-                        "replicates (Var[log L-hat] ~= 1.6, the "
-                        "Doucet-Pitt target) and never-frozen proposal "
-                        "adaptation — ESS/s measured 3.5x the "
-                        "reference-parity configuration "
-                        "(data/tune_pmmh.jsonl); explicit --chains "
-                        "still wins")
+                   help="pseudo-marginal tuning instead of the reference "
+                        "constants: 64 chains x 2 PF replicates (aiming "
+                        "at Var[log L-hat] ~= 1.6, the Doucet-Pitt "
+                        "target) and never-frozen proposal adaptation; "
+                        "explicit --chains still wins")
     args = p.parse_args(argv)
 
     t1 = 1000
@@ -82,19 +72,22 @@ def main(argv=None):
 
     model = svol.make_model()
     batched_ll = None
-    if args.engine == "pallas":
-        if jax.devices()[0].platform != "tpu":
-            p.error("--engine pallas needs a real TPU")
-        n_parts = args.particles
-        if n_parts % 128 or n_parts > 1024:
-            n_parts = min(max(128, (n_parts + 127) // 128 * 128), 1024)
-            print(f"pallas engine: rounding --particles to {n_parts} "
-                  "(multiple of 128, <= 1024)", file=sys.stderr)
-        args.particles = n_parts
-        from ssme_tpu.ops.svol_filter_kernel import (
-            svol_pallas_batched_log_like)
-        batched_ll = svol_pallas_batched_log_like(
-            n_parts, args.n_pfilters, gate_stride=args.gate_stride)
+    if args.engine == "kernel":
+        from ssme_tpu.ops.filter_megakernel import (megakernel_log_like,
+                                                    svol_kernel_model,
+                                                    svol_param_rows)
+        from ssme_tpu.runtime import require_gpu
+        try:
+            require_gpu("--engine kernel")
+        except RuntimeError as e:
+            p.error(str(e))
+        n = args.particles
+        if n & (n - 1):
+            p.error(f"--engine kernel needs a power-of-two --particles "
+                    f"(got {n})")
+        batched_ll = megakernel_log_like(svol_kernel_model(), n,
+                                         args.n_pfilters,
+                                         constrain=svol_param_rows)
     pmmh = AdaptivePMMH(model, num_particles=args.particles,
                         num_replicates=args.n_pfilters, t0=150, t1=t1,
                         batched_log_like=batched_ll)

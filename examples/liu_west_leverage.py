@@ -8,14 +8,9 @@ The reference's Liu-West demo workload (``test/test_liu_west.cpp``: the
 
 Covariates are the lagged observations (leverage).  Prints the running
 conditional log-likelihood, final parameter-particle summaries, and
-optionally simulates future observation paths.
-
-Two engines:
-- ``--engine generic`` (default): the model-agnostic `LiuWestFilter`
-  (works on any `StateSpaceModel`, CPU or TPU)
-- ``--engine pallas``: the TPU megakernel (one `pallas_call` for the
-  whole sequence; ~14x faster per filter and batches many independent
-  filters)
+optionally simulates future observation paths.  It runs the
+model-agnostic `LiuWestFilter`, which works on any `StateSpaceModel`
+and device.
 """
 
 import argparse
@@ -36,15 +31,12 @@ def main(argv=None):
     p.add_argument("--particles", type=int, default=2048)
     p.add_argument("--delta", type=float, default=0.99)
     p.add_argument("--variant", choices=["apf", "sisr"], default="apf")
-    p.add_argument("--engine", choices=["generic", "pallas"],
-                   default="generic")
-    p.add_argument("--filters", type=int, default=8,
-                   help="independent LW filters (pallas engine)")
     p.add_argument("--forecast", type=int, default=0,
                    help="simulate this many future steps")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
+    from ssme_tpu.filters import LiuWestFilter
     from ssme_tpu.io import read_data
     from ssme_tpu.models import svol_leverage
 
@@ -52,36 +44,25 @@ def main(argv=None):
     zs = jnp.concatenate([jnp.zeros((1, 1)), ys[:-1]])  # lagged obs
     model = svol_leverage.make_model()
 
-    if args.engine == "pallas":
-        from ssme_tpu.ops import lw_cloud_params, svol_leverage_lw_pallas
-        out = svol_leverage_lw_pallas(
-            args.seed, ys, num_filters=args.filters,
-            num_particles=args.particles, delta=args.delta)
-        ll = np.asarray(out["log_likelihood"])
-        print(f"log-likelihood: {ll.mean():.2f} +- {ll.std():.2f} "
-              f"({args.filters} filters)")
-        params = np.asarray(lw_cloud_params(out["cloud"])).reshape(-1, 4)
-    else:
-        from ssme_tpu.filters import LiuWestFilter
-        lw = LiuWestFilter(model, num_particles=args.particles,
-                           delta=args.delta, variant=args.variant)
-        res = jax.jit(lw.run)(jax.random.key(args.seed), ys, zs)
-        print(f"log-likelihood: {float(res.log_likelihood):.2f}")
-        print(f"final ESS: {float(res.ess[-1]):.1f} / {args.particles}")
-        params = np.asarray(lw.param_samples(res))
-        if args.forecast:
-            obs = lw.sim_future_obs(jax.random.key(args.seed + 1),
-                                    res.last_particles,
-                                    res.last_trans_params,
-                                    num_steps=args.forecast,
-                                    last_obs=ys[-1])
-            q = np.quantile(np.asarray(obs)[..., 0], [0.05, 0.5, 0.95],
-                            axis=1)
-            print(f"forecast ({args.forecast} steps, 5/50/95th "
-                  f"percentiles of simulated observations):")
-            for t in range(args.forecast):
-                print(f"  t+{t+1}: {q[0, t]:+.4f} {q[1, t]:+.4f} "
-                      f"{q[2, t]:+.4f}")
+    lw = LiuWestFilter(model, num_particles=args.particles,
+                       delta=args.delta, variant=args.variant)
+    res = jax.jit(lw.run)(jax.random.key(args.seed), ys, zs)
+    print(f"log-likelihood: {float(res.log_likelihood):.2f}")
+    print(f"final ESS: {float(res.ess[-1]):.1f} / {args.particles}")
+    params = np.asarray(lw.param_samples(res))
+    if args.forecast:
+        obs = lw.sim_future_obs(jax.random.key(args.seed + 1),
+                                res.last_particles,
+                                res.last_trans_params,
+                                num_steps=args.forecast,
+                                last_obs=ys[-1])
+        q = np.quantile(np.asarray(obs)[..., 0], [0.05, 0.5, 0.95],
+                        axis=1)
+        print(f"forecast ({args.forecast} steps, 5/50/95th "
+              f"percentiles of simulated observations):")
+        for t in range(args.forecast):
+            print(f"  t+{t+1}: {q[0, t]:+.4f} {q[1, t]:+.4f} "
+                  f"{q[2, t]:+.4f}")
 
     names = ["phi", "mu", "sigma", "rho"]
     print("parameter particles (mean +- sd):", file=sys.stderr)

@@ -1,14 +1,12 @@
 #!/usr/bin/env python
-"""The SPY flagship posterior run (VERDICT r3 item 1, final step):
-10,000 MCMC iterations on the full T=3084 series from the REFERENCE
-cold start, at the measured pseudo-marginal optimum — C=64 chains,
-N=512, R=2 (Var[log L-hat] ~= 1.6), continuous Haario adaptation — via
-the Pallas megakernel.
+"""The SPY flagship posterior run: 10,000 MCMC iterations on the full
+T=3084 series from the REFERENCE cold start, at the pseudo-marginal
+tuning C=64 chains, N=512, R=2 (aiming at Var[log L-hat] ~= 1.6),
+continuous Haario adaptation — through the whole-filter kernel (needs a
+GPU).
 
-Produces data/spy_posterior_summary_tuned.json (+ samples .npy) and
-prints the accept rate / split-R-hat / Geyer ESS / ESS-per-second
-comparison against the recorded round-3 run (8 chains x 10k iters,
-R=16, t1=1000: accept ~2-3%, min ESS ~294, 986 s => 0.30 ESS/s).
+Writes data/spy_posterior_summary_<tag>.json (+ samples .npy) and
+prints the accept rate, split-R-hat, Geyer ESS and ESS per second.
 
 Run:  python examples/spy_flagship.py
 """
@@ -36,17 +34,12 @@ def main(argv=None):
     ap.add_argument("--particles", type=int, default=512)
     ap.add_argument("--replicates", type=int, default=2)
     ap.add_argument("--burn", type=int, default=2000)
-    # 250-iteration compiled chunks: round-5 probes measured 500+
-    # iteration single-jit scans killing the TPU worker at RUN
-    # (data/probe_crash.jsonl; inference.pmmh.MAX_SCAN_ITERS)
+    # compiled chunks of at most inference.pmmh.MAX_SCAN_ITERS
     ap.add_argument("--chunk", type=int, default=250)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--ess", type=float, default=0.5,
                     help="kernel resampling schedule (1.0 = every-step "
                          "reference parity)")
-    ap.add_argument("--gate-stride", type=int, default=1,
-                    help="kernel LSE/ESS check stride (docs/kernels.md "
-                         "gate_stride; 8 = the measured 2.1x lever)")
     ap.add_argument("--tag", default="tuned")
     args = ap.parse_args(argv)
 
@@ -54,19 +47,21 @@ def main(argv=None):
     from ssme_tpu.inference import AdaptivePMMH
     from ssme_tpu.io import read_data
     from ssme_tpu.models import svol
-    from ssme_tpu.ops.svol_filter_kernel import svol_pallas_batched_log_like
+    from ssme_tpu.ops.filter_megakernel import (megakernel_log_like,
+                                                svol_kernel_model,
+                                                svol_param_rows)
+    from ssme_tpu.runtime import enable_compile_cache, require_gpu
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    enable_compile_cache()
+    require_gpu("examples/spy_flagship.py")
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ys = jnp.asarray(read_data(os.path.join(root, "data",
                                             "spy_returns.csv"), num_cols=1))
 
-    batched = svol_pallas_batched_log_like(args.particles, args.replicates,
-                                           ess_threshold=args.ess,
-                                           gate_stride=args.gate_stride)
+    batched = megakernel_log_like(svol_kernel_model(), args.particles,
+                                  args.replicates, constrain=svol_param_rows,
+                                  ess_threshold=args.ess)
     pmmh = AdaptivePMMH(svol.make_model(), num_particles=args.particles,
                         num_replicates=args.replicates, t0=150, t1=10**9,
                         batched_log_like=batched)
@@ -106,7 +101,6 @@ def main(argv=None):
         "config": {"iters": args.iters, "chains": args.chains,
                    "N": args.particles, "R": args.replicates,
                    "ess_threshold": args.ess,
-                   "gate_stride": args.gate_stride,
                    "adaptation": "continuous",
                    "start": "reference (estimate_univ_svol.h:152-154)",
                    "burn": args.burn},
@@ -115,8 +109,6 @@ def main(argv=None):
         "posterior": stats,
         "min_ess": min_ess,
         "ess_per_sec": min_ess / wall,
-        "round3_baseline": {"accept": 0.025, "min_ess": 294,
-                            "wall_secs": 986, "ess_per_sec": 294 / 986},
     }
     np.save(os.path.join(root, "data",
                          f"spy_posterior_samples_{args.tag}.npy"), samples)

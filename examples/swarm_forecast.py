@@ -34,19 +34,14 @@ def main(argv=None):
     p.add_argument("--param-particles", type=int, default=32)
     p.add_argument("--forecast", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--engine", choices=["generic", "pallas"],
+    p.add_argument("--engine", choices=["generic", "kernel"],
                    default="generic",
-                   help="pallas: run the whole filter bank in ONE "
-                        "megakernel launch (TPU; svol and svol_leverage)")
+                   help="kernel: run the whole filter bank in ONE launch "
+                        "of the whole-filter kernel (needs a GPU; svol "
+                        "and svol_leverage)")
     p.add_argument("--ess", type=float, default=1.0,
-                   help="pallas resampling schedule (1.0 = every step; "
-                        "0.5 = ESS-adaptive, faster)")
-    p.add_argument("--gate-stride", type=int, default=1,
-                   help="pallas LSE/ESS check stride (requires --ess < "
-                        "1.0).  Filter-bank knob: strides 8/16/32 "
-                        "measured up to 1.7x (2.8x net of dispatch) at "
-                        "higher evidence-estimator sd — see "
-                        "docs/kernels.md 'gate_stride'")
+                   help="kernel resampling schedule (1.0 = every step; "
+                        "0.5 = ESS-adaptive)")
     args = p.parse_args(argv)
 
     from ssme_tpu.inference import SwarmFilter
@@ -66,33 +61,33 @@ def main(argv=None):
     draws = sampler.samp(jax.random.key(args.seed),
                          num=args.param_particles)
 
-    if args.engine == "pallas":
-        # whole swarm filter bank in one pallas_call (the split-data
-        # thread pool of pswarm_filter.h as a kernel row axis)
+    if args.engine == "kernel":
+        # whole swarm filter bank in one kernel launch (the split-data
+        # thread pool of pswarm_filter.h as the kernel's row axis)
         from ssme_tpu.ops.filter_megakernel import (
-            megakernel_swarm_evidence, svol_kernel_model,
-            svol_leverage_kernel_model)
+            MAX_KERNEL_PARTICLES, megakernel_swarm_evidence,
+            svol_kernel_model, svol_leverage_kernel_model, svol_param_rows)
+        from ssme_tpu.runtime import require_gpu
+        try:
+            require_gpu("--engine kernel")
+        except RuntimeError as e:
+            p.error(str(e))
         if args.model == "svol":
             km = svol_kernel_model()
-            rows = np.asarray(draws)
-            rows = np.stack([rows[:, 0], rows[:, 1],
-                             np.sqrt(rows[:, 2])], axis=-1)  # ss -> sigma
+            rows = svol_param_rows(draws)
             zrows = None
         else:
             km = svol_leverage_kernel_model()
-            rows = np.asarray(draws)
-            zrows = np.asarray(zs).reshape(-1, 1)
-        if (args.state_particles % 128 != 0
-                or args.state_particles > 1024):
-            p.error("--engine pallas requires --state-particles to be a "
-                    "multiple of 128 and at most 1024 "
-                    f"(got {args.state_particles}); use the generic "
-                    "engine for other sizes")
+            rows = jnp.asarray(draws)
+            zrows = zs
+        n = args.state_particles
+        if n & (n - 1) or n > MAX_KERNEL_PARTICLES:
+            p.error("--engine kernel requires --state-particles to be a "
+                    f"power of two of at most {MAX_KERNEL_PARTICLES} "
+                    f"(got {n}); use the generic engine for other sizes")
         ev = megakernel_swarm_evidence(
-            km, args.seed + 1, jnp.asarray(rows), ys, zrows,
-            num_particles=args.state_particles,
-            ess_threshold=args.ess, gate_stride=args.gate_stride,
-            return_cloud=bool(args.forecast))
+            km, args.seed + 1, rows, ys, zrows, num_particles=n,
+            ess_threshold=args.ess, return_cloud=bool(args.forecast))
         lcl = np.asarray(ev["log_cond_like"])
         print(f"total conditional evidence: {lcl.sum():.2f} "
               f"(reference mean-of-logs aggregation: "

@@ -9,11 +9,11 @@ representative theta — the Doucet & Pitt (2015) / Pitt et al. (2012)
 optimum sets Var[log L-hat(theta*)] in roughly 1.0-1.7; far above that,
 the chain sticks (accept rate collapses exponentially in sigma), while
 far below it wastes compute on needless replicates/particles.  This
-script measures that variance on the chip so N x R can be tuned instead
+script measures that variance on the GPU so N x R can be tuned instead
 of guessed.
 
-Method: the megakernel returns SINGLE-replicate log-likelihoods per
-batch row (``svol_filter_pallas``), and the R-replicate estimator used
+Method: the whole-filter kernel returns SINGLE-replicate
+log-likelihoods per row (``filter_megakernel``), and the R-replicate estimator used
 in the MH ratio is ``logmeanexp`` over R of them (the averaging thread
 pool semantics, reference ``include/ssme/thread_pool.h:259-273``).  So
 for each N we draw ``--singles`` independent single-replicate estimates
@@ -22,11 +22,11 @@ R by host-side random regrouping (bootstrap over partitions) — one
 compile per N covers the whole R grid.
 
 Outputs one JSON line per (N, R) with the variance, its bootstrap SE,
-and the measured chip seconds per (launch row x T) so cost-normalized
+and the measured device seconds per (launch row x T) so cost-normalized
 comparisons are possible.  Singles are also saved to .npy next to the
 output for offline re-analysis.
 
-Run (on the chip):
+Run (on a GPU):
     python examples/tune_variance.py --out data/tune_variance.jsonl
 """
 
@@ -41,7 +41,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-THETA_STAR = (0.849, 0.9744, 0.0659)  # SPY posterior mean (RESULTS.md)
+THETA_STAR = (0.849, 0.9744, 0.0659)  # SPY posterior mean
 
 
 def measure_singles(n_particles, n_singles, ys, theta, ess_threshold,
@@ -52,18 +52,18 @@ def measure_singles(n_particles, n_singles, ys, theta, ess_threshold,
     import jax
     import jax.numpy as jnp
 
-    from ssme_tpu.ops.svol_filter_kernel import TILE_B, svol_filter_pallas
+    from ssme_tpu.ops.filter_megakernel import (filter_megakernel,
+                                                svol_kernel_model,
+                                                svol_param_rows)
 
-    beta, phi, ss = theta
     rows = min(launch_rows, n_singles)
-    rows = ((rows + TILE_B - 1) // TILE_B) * TILE_B
     p = jnp.broadcast_to(
-        jnp.asarray([beta, phi, np.sqrt(ss)], jnp.float32), (rows, 3))
+        svol_param_rows(jnp.asarray([theta], jnp.float32)), (rows, 3))
 
     @jax.jit
     def launch(seed):
-        total, _, _ = svol_filter_pallas(
-            seed, p, ys, num_particles=n_particles,
+        total, _, _ = filter_megakernel(
+            svol_kernel_model(), seed, p, ys, num_particles=n_particles,
             ess_threshold=ess_threshold)
         return total
 
@@ -129,14 +129,13 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    import jax
     import jax.numpy as jnp
 
     from ssme_tpu.io import read_data
+    from ssme_tpu.runtime import enable_compile_cache, require_gpu
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    enable_compile_cache()
+    require_gpu("the whole-filter kernel")
 
     data_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "..", "data", "spy_returns.csv")
@@ -153,7 +152,7 @@ def main():
         singles, times = measure_singles(
             n, args.singles, ys, tuple(args.theta), args.ess,
             seed0=args.seed * 1000 + n, launch_rows=args.launch_rows)
-        # first launch includes compile; per-row chip cost from the rest
+        # first launch includes compile; per-row device cost from the rest
         warm = times[1:] if len(times) > 1 else times
         rows_per_launch = min(args.launch_rows, args.singles)
         sec_per_row = float(np.mean(warm)) / rows_per_launch

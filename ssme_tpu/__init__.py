@@ -1,7 +1,7 @@
-"""ssme_tpu: a TPU-native state-space model estimation framework.
+"""ssme_tpu: a JAX state-space model estimation framework for GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-reference C++ library ``tbrown122387/ssme`` (see /root/reference):
+reference C++ library ``tbrown122387/ssme``:
 
 - parameter transform machinery (``ssme_tpu.transforms``; reference
   ``include/ssme/parameters.h``)

@@ -1,11 +1,11 @@
 """Bootstrap particle filter (+ covariate variant) as a single fused scan.
 
-TPU-native replacement for ``pf``'s ``BSFilter`` / ``BSFilterWC`` surface
+JAX replacement for ``pf``'s ``BSFilter`` / ``BSFilterWC`` surface
 (SURVEY §2.3; driven by the reference at
 ``example/estimate_univ_svol.h:119-127`` and ``test/test_pswarm.cpp:86-92``):
 
 - the per-particle virtual-call loop becomes one ``vmap`` over the particle
-  axis (propagate + weight fuse into a handful of VPU ops);
+  axis (propagate + weight fuse into a handful of elementwise ops);
 - the time loop is a ``lax.scan`` whose carry is the particle cloud;
 - resampling is the vectorized kernels of :mod:`ssme_tpu.resampling`,
   applied on a static schedule via a branch-free select;
@@ -282,7 +282,7 @@ def replicated_log_like_fn(model: StateSpaceModel, num_particles: int,
     as a ``vmap`` x ``vmap`` filter bank.
 
     The single shared implementation behind ``AdaptivePMMH``'s
-    ``batched_log_like`` when the Pallas kernels don't apply: the
+    ``batched_log_like`` when the filter kernel doesn't apply: the
     megakernel large-N bridge (``ops.filter_megakernel
     .megakernel_log_like(model=...)``) and ``bench.py``'s XLA impl both
     route here, with ``ess_threshold`` honored (None = the reference's

@@ -1,6 +1,6 @@
 """Liu-West filters: joint online state + parameter estimation.
 
-TPU-native replacement for the reference's eight Liu-West class variants
+JAX replacement for the reference's eight Liu-West class variants
 (``include/ssme/liu_west_filter.h:149-2528``, SURVEY §2 #8-#16).  The 2x2x2
 C++ template grid {APF form, SISR form} x {covariates, none} x {future
 simulation} collapses here into ONE class: ``variant`` selects the

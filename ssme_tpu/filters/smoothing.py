@@ -10,7 +10,7 @@ lag already approximates the full smoother E[x_s | y_{1:T}]
 (validated against the exact RTS Kalman smoother on the linear-Gaussian
 model in ``tests/test_smoothing.py``).
 
-TPU shape notes: the window is a dense (L+1, N, dim_state) carry array
+Shape notes: the window is a dense (L+1, N, dim_state) carry array
 rolled with ``jnp.roll`` (static shapes, no dynamic slicing); resampling
 gathers it jointly with the particles through the existing pytree
 resampler.

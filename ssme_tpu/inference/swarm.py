@@ -1,6 +1,6 @@
 """Particle swarm filter: a bank of particle filters, one per parameter draw.
 
-TPU-native replacement for ``Swarm`` / ``SwarmWithCovs``
+JAX replacement for ``Swarm`` / ``SwarmWithCovs``
 (``include/ssme/pswarm_filter.h:22-605``; paper arXiv:2006.15396): many
 bootstrap filters, each instantiated with a parameter drawn from an
 approximate posterior, averaged per time step to approximate the

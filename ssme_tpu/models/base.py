@@ -1,6 +1,6 @@
 """Model specification: a state-space model as a pytree of pure functions.
 
-This is the TPU-native replacement for the reference's model interface,
+This is the JAX replacement for the reference's model interface,
 which is pure-virtual subclassing of filter base classes with compile-time
 sizes (SURVEY §1 extension mechanism; hook sets at
 ``pf/bootstrap_filter.h`` / ``include/ssme/liu_west_filter.h:246-295,
@@ -79,8 +79,7 @@ class StateSpaceModel:
 
     # Optional batched samplers (performance fast path).  Per-particle
     # sampling hooks under vmap generate one PRNG block per particle via
-    # split keys; on TPU a single batched draw is markedly cheaper inside
-    # a scan.  Signatures take the whole particle cloud and ONE key:
+    # split keys; one batched draw per step is cheaper inside a scan.  Signatures take the whole particle cloud and ONE key:
     #   sample_q1_batch(key, params, y1, n) -> (n, dim_state)
     #   sample_f_batch(key, params, xs, z) -> xs'      (xs: (n, dim_state))
     #   sample_q_batch(key, params, xs, y, z) -> xs'

@@ -11,7 +11,7 @@ factors drive n observed return series:
 
 so y_t | x_t ~ N(0, L diag(e^{x_t}) L' + diag(d)).  The observation
 density uses the Woodbury identity: only k x k solves per particle, with
-the n x k products batched onto the MXU under vmap.
+the n x k products batched under vmap.
 
 Parameter vector (constrained), length 3k + nk + n:
     [phi (k), mu (k), sigma (k), vec(L) (nk), d (n)]
@@ -83,14 +83,13 @@ def make_model(n_assets: int = 5, k_factors: int = 2) -> StateSpaceModel:
         """log N(y; 0, L S L' + D) via Woodbury/matrix-determinant lemma.
 
         S = diag(e^x) (k x k), D = diag(d).  Only a k x k Cholesky per
-        particle; the n x k contractions batch onto the MXU under vmap.
+        particle; the n x k contractions batch under vmap.
 
-        NOTE: contractions carry ``Precision.HIGHEST`` explicitly.  The
-        TPU DEFAULT f32 matmul truncates inputs to bf16; here that
-        truncation compounds through the filtering recursion into a
-        measured +3.4-nat bias on a T=500 likelihood (megakernel and
-        float64 numpy references agree at -276.15 on the probe workload;
-        the default-precision path gave -272.75).
+        NOTE: contractions carry ``Precision.HIGHEST`` explicitly.  A
+        float32 matmul at default precision may round its inputs (TF32
+        on a GPU keeps ~10 mantissa bits), and that rounding compounds
+        through the filtering recursion into a bias of several nats on
+        a T=500 likelihood.
         """
         _, _, _, loadings, d = _unpack(params, n, k)
         hi = jax.lax.Precision.HIGHEST

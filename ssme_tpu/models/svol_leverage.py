@@ -56,9 +56,8 @@ def _unpack(params):
 # bounds the recursion (|x'| <= STATE_CLAMP + ~6 sd) while being the
 # identity for every physically meaningful path: |log-variance| > 40 is
 # variance beyond e^40, where the particle's weight is ~0 anyway.  The
-# same clamp is applied in the Pallas kernels (filter_megakernel /
-# liu_west_megakernel / svol_leverage_lw_kernel) so all paths keep
-# identical dynamics.
+# same clamp is applied in the filter kernel's leverage model
+# (ops/filter_megakernel.py) so all paths keep identical dynamics.
 STATE_CLAMP = 40.0
 
 

@@ -1,54 +1,31 @@
-from ssme_tpu.ops.svol_kernel import (
-    fused_svol_propagate_weight,
-    pallas_available,
-)
-from ssme_tpu.ops.svol_filter_kernel import (
-    svol_filter_pallas,
-    svol_pallas_batched_log_like,
-    svol_pallas_replicated_log_like,
-    svol_swarm_evidence_pallas,
-)
-from ssme_tpu.ops.svol_leverage_lw_kernel import (
-    svol_leverage_lw_pallas,
-    lw_cloud_params,
-    lw_cloud_weights,
-)
+# ``filter_megakernel`` the function is not re-exported: it would shadow
+# the submodule of the same name.
 from ssme_tpu.ops.filter_megakernel import (
-    metropolis_bias_estimate,
-    metropolis_sweeps_for,
-)
-from ssme_tpu.ops.liu_west_megakernel import (
-    LWKernelModel,
-    lw_megakernel,
-    svol_leverage_lw_kernel_model,
-    svol_t_lw_kernel_model,
-)
-# the factory's cloud decoders take (kmodel, cloud) and work for ANY
-# LWKernelModel; aliased so they don't shadow the hand kernel's
-# leverage-specific lw_cloud_params/lw_cloud_weights above
-from ssme_tpu.ops.liu_west_megakernel import (
-    lw_cloud_params as lw_factory_cloud_params,
-    lw_cloud_weights as lw_factory_cloud_weights,
-    lw_cloud_states as lw_factory_cloud_states,
+    KernelModel,
+    MAX_KERNEL_PARTICLES,
+    factor_svol_kernel_model,
+    megakernel_log_like,
+    megakernel_swarm_evidence,
+    poisson_ar_kernel_model,
+    poisson_obs_rows,
+    svol_kernel_model,
+    svol_leverage_kernel_model,
+    svol_param_rows,
+    svol_t_kernel_model,
+    svol_t_param_rows,
 )
 
 __all__ = [
-    "metropolis_bias_estimate",
-    "metropolis_sweeps_for",
-    "lw_factory_cloud_states",
-    "lw_factory_cloud_weights",
-    "lw_factory_cloud_params",
-    "LWKernelModel",
-    "lw_megakernel",
-    "svol_leverage_lw_kernel_model",
-    "svol_t_lw_kernel_model",
-    "fused_svol_propagate_weight",
-    "pallas_available",
-    "svol_filter_pallas",
-    "svol_pallas_batched_log_like",
-    "svol_pallas_replicated_log_like",
-    "svol_swarm_evidence_pallas",
-    "svol_leverage_lw_pallas",
-    "lw_cloud_params",
-    "lw_cloud_weights",
+    "KernelModel",
+    "MAX_KERNEL_PARTICLES",
+    "factor_svol_kernel_model",
+    "megakernel_log_like",
+    "megakernel_swarm_evidence",
+    "poisson_ar_kernel_model",
+    "poisson_obs_rows",
+    "svol_kernel_model",
+    "svol_leverage_kernel_model",
+    "svol_param_rows",
+    "svol_t_kernel_model",
+    "svol_t_param_rows",
 ]

@@ -1,103 +1,97 @@
-"""Shared in-kernel PRNG helpers for the Pallas TPU kernels.
+"""Counter-based random numbers for the whole-filter kernel.
 
-Standard normals / uniforms from the hardware PRNG
-(``pltpu.prng_random_bits`` returns signed int32; the +2^31 shift maps to
-[0, 2^32)).  Call ``pltpu.prng_seed`` before use; seeds take at most two
-scalars, so grid indices must be mixed arithmetically.
+A GPU kernel has no hardware generator, so every draw is a pure
+function of a counter: Threefry-2x32 (20 rounds, the hash behind
+``jax.random``'s default generator) of the 64-bit row key and the
+counter ``(step, slot << 20 | lane)``.  ``slot`` numbers the draws a
+filter makes within one time step, ``lane`` the particle.  The same
+functions run inside the kernel and in plain ``jax.numpy``, which is
+how the tests pin the kernel's stream bit for bit.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
 TWO_PI = 6.283185307179586
 HALF_LOG_2PI = 0.9189385332046727
-_INV_2_32 = 1.0 / 4294967296.0
+_INV_2_24 = 1.0 / 16777216.0
+
+# counter layout: 20 bits of lane, the rest of the word for the slot
+LANE_BITS = 20
+MAX_SLOTS = 1 << (32 - LANE_BITS)
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = np.uint32(0x1BD11BDA)
 
 
-def uniform_bits(shape):
-    """U[0, 1) of the given shape."""
-    bits = pltpu.prng_random_bits(shape)
-    return (bits.astype(jnp.float32) + 2147483648.0) * _INV_2_32
+def _rotl(x, r):
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
 
 
-def normal_bits(shape):
-    """Standard normals via Box-Muller (u1 in (0, 1] so log is finite).
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds, on uint32 arrays (broadcasting).
 
-    When the lane count is a multiple of 256, both Box-Muller
-    outputs (r cos, r sin) are used — the pair is independent N(0,1) —
-    halving the transcendental count per normal (log/sqrt shared, one
-    cos + one sin per TWO normals instead of log/sqrt/cos per one).
-
-    Round-5 negative A/B: computing the sine via the exact identity
-    ``sin(2 pi u) = sgn(0.5 - u) * sqrt(1 - cos^2)`` — motivated by the
-    per-op roofline measuring ISOLATED cos/sin at 2.4e10 elems/s vs
-    ~6e10 for sqrt — measured NEUTRAL-to-5%-SLOWER end-to-end at both
-    gate strides (1.66e10 vs 1.69e10 props/s at stride 1; 3.41e10 vs
-    3.58e10 at stride 8), consistent with the compiler already fusing
-    the same-argument cos+sin pair into one sincos.  Native sin kept.
-    """
-    if len(shape) == 2 and shape[1] % 256 == 0:
-        half = (shape[0], shape[1] // 2)
-        bits1 = pltpu.prng_random_bits(half)
-        bits2 = pltpu.prng_random_bits(half)
-        u1 = (bits1.astype(jnp.float32) + 2147483648.0 + 1.0) * _INV_2_32
-        u2 = (bits2.astype(jnp.float32) + 2147483648.0) * _INV_2_32
-        r = jnp.sqrt(-2.0 * jnp.log(u1))
-        a = TWO_PI * u2
-        return jnp.concatenate([r * jnp.cos(a), r * jnp.sin(a)], axis=1)
-    bits1 = pltpu.prng_random_bits(shape)
-    bits2 = pltpu.prng_random_bits(shape)
-    u1 = (bits1.astype(jnp.float32) + 2147483648.0 + 1.0) * _INV_2_32
-    u2 = (bits2.astype(jnp.float32) + 2147483648.0) * _INV_2_32
-    r = jnp.sqrt(-2.0 * jnp.log(u1))
-    return r * jnp.cos(TWO_PI * u2)
+    Same function as ``jax.random``'s ``threefry_2x32`` hash, written in
+    shifts, xors and wrapping adds only, so it lowers inside a kernel."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = _rotl(x1, r) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
 
 
-def uniform_offset(shape):
-    """Systematic-resampling offset: U in (0, 1), never exactly 0.
-
-    ``uniform_bits`` is U[0, 1) inclusive of 0; a 0.0 offset makes the
-    first systematic point u_0 = 0, which the half-open interval test
-    ``(cdf >= u) & (cdf_ex < u)`` rejects for EVERY source lane
-    (cdf_ex[0] is pinned to 0 and 0 < 0 is false) — ancestor slot 0
-    would come back all-zero.  Mapping the 0 atom to the next grid
-    point (2^-32) removes that corruption; every other draw is
-    bit-identical."""
-    return jnp.maximum(uniform_bits(shape), _INV_2_32)
+def draw_words(k0, k1, step, slot: int, shape):
+    """Two uint32 words per element of ``shape`` for draw ``slot`` of
+    time step ``step``; the last axis of ``shape`` is the lane."""
+    lane = jax.lax.broadcasted_iota(jnp.uint32, shape, len(shape) - 1)
+    x0 = jnp.asarray(step).astype(jnp.uint32)
+    x1 = lane + np.uint32(slot << LANE_BITS)
+    return threefry2x32(k0, k1, x0, x1)
 
 
-def tile_seeds(seed, num_tiles: int):
-    """Per-grid-tile seed WORDS threefry-derived from a scalar seed or a
-    ``jax.random`` key: shape ``(2 * num_tiles,)`` int32, TWO words per
-    tile (tile b owns slots 2b and 2b+1).
+def uniform_from_word(w):
+    """U(0, 1), both ends open: the top 24 bits, centred in their cell."""
+    top = (w >> np.uint32(8)).astype(jnp.int32).astype(jnp.float32)
+    return (top + 0.5) * _INV_2_24
 
-    The kernels seed the hardware PRNG once per grid cell with
-    ``pltpu.prng_seed(words[2b], words[2b+1] ^ cell_mix)`` — 64 bits of
-    threefry output per tile.  With the old single 31-bit word, two of
-    a PMMH chain's 1e4 iterations reuse an identical hardware stream
-    with birthday probability ~2%%; with 64 bits it is ~1e-12 (an
-    avoidable correlation in a pseudo-marginal sampler).  Deriving
-    through ``jax.random`` (threefry) rather than an additive fold of
-    the tile index keeps different tiles' streams cryptographically
-    decorrelated — the per-row independence PMMH's replicate averaging
-    (``thread_pool.h:259-273``) assumes of its workers.
 
-    ``seed`` may be a Python/int32 scalar (tests, standalone filters) or
-    a ``jax.random`` typed key (the PMMH hooks pass their iteration key
-    straight through, preserving its full entropy).
+def normal_from_words(w0, w1):
+    """One standard normal per element by Box-Muller (cosine branch)."""
+    u1 = uniform_from_word(w0)
+    u2 = uniform_from_word(w1)
+    return jnp.sqrt(-2.0 * jnp.log(u1)) * jnp.cos(TWO_PI * u2)
+
+
+def row_seeds(seed, num_rows: int):
+    """Per-row key words threefry-derived from a scalar seed or a
+    ``jax.random`` key: shape ``(2 * num_rows,)`` uint32, row ``b``
+    owning words ``2b`` and ``2b + 1``.
+
+    Each filter row gets a 64-bit key.  With one 31-bit word, two of a
+    PMMH chain's 1e4 iterations would reuse a stream with birthday
+    probability ~2%; with 64 bits it is ~1e-12.  Deriving through
+    ``jax.random`` keeps rows' streams decorrelated, which PMMH's
+    replicate averaging (``thread_pool.h:259-273``) assumes.
+
+    ``seed`` may be an integer (tests, standalone filters) or a typed
+    ``jax.random`` key (the PMMH hooks pass their iteration key
+    straight through, keeping its full entropy).
     """
     if isinstance(seed, jax.Array) and jnp.issubdtype(
             seed.dtype, jax.dtypes.prng_key):
         key = seed
     else:
         key = jax.random.PRNGKey(jnp.asarray(seed, jnp.uint32))
-    info = jnp.iinfo(jnp.int32)
-    return jax.random.randint(key, (2 * num_tiles,), minval=int(info.min),
-                              maxval=int(info.max), dtype=jnp.int32)
+    return jax.random.bits(key, (2 * num_rows,), jnp.uint32)
 
 
-__all__ = ["uniform_bits", "normal_bits", "uniform_offset", "tile_seeds",
-           "TWO_PI", "HALF_LOG_2PI"]
+__all__ = ["threefry2x32", "draw_words", "uniform_from_word",
+           "normal_from_words", "row_seeds", "HALF_LOG_2PI", "MAX_SLOTS"]

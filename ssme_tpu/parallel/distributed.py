@@ -1,4 +1,4 @@
-"""Multi-host (multi-process) entry path: chains over DCN.
+"""Multi-host (multi-process) entry path: chains across hosts.
 
 The reference's parallel envelope stops at one process's threads
 (``include/ssme/thread_pool.h:131-137``); BASELINE.md's north-star row
@@ -9,22 +9,23 @@ shows GSPMD-sharded PMMH bit-matches the unsharded run), so host
 boundaries cost nothing but the initial broadcast and the final sample
 fetch.
 
-Pod recipe (same code on every host):
+Cluster recipe (same code on every process):
 
     from ssme_tpu import parallel
 
-    parallel.initialize_distributed()          # env-driven on TPU pods
-    mesh = parallel.make_global_mesh()         # all chips, all hosts
+    parallel.initialize_distributed("host0:1234", num_processes=P,
+                                    process_id=rank)
+    mesh = parallel.make_global_mesh()         # all cards, all hosts
     state = pmmh.init(key, start, ys, num_chains=C)   # same key everywhere
     state = parallel.shard_chain_state(state, mesh)   # scatter chains
     run = parallel.jit_sharded_pmmh(pmmh, mesh, num_iters)
-    res = run(state, ys)                       # SPMD across the pod
+    res = run(state, ys)                       # SPMD across processes
     samples = parallel.fetch_across_hosts(res.samples)  # (iters, C, d)
 
-On Cloud TPU pods ``jax.distributed.initialize()`` discovers the
-coordinator and process count from the TPU environment; elsewhere
-(e.g. the localhost CPU dryrun ``examples/dryrun_multihost.py``) pass
-them explicitly.  Every process must execute the SAME program order —
+Nothing on a GPU host tells JAX of a cluster, so every process passes
+the coordinator's ``host:port`` (any free port on process 0's host),
+the process count and its own rank explicitly — as the localhost CPU
+dryrun ``examples/dryrun_multihost.py`` does.  Every process must execute the SAME program order —
 that is also the reference's implicit contract between its threads and
 the promise/future handshake (``thread_pool.h:189-215``), promoted to
 processes.
@@ -47,10 +48,10 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            ) -> None:
     """Join (or form) a multi-process JAX runtime.
 
-    On Cloud TPU pod slices call with no arguments — the TPU runtime
-    env supplies everything.  For manual / CPU clusters pass the
-    coordinator's ``host:port``, the total process count, and this
-    process's rank.  Safe to call once per process, before any other
+    Pass the coordinator's ``host:port``, the total process count,
+    and this process's rank: on GPU hosts and CPU clusters nothing in
+    the environment supplies them, and ``jax.distributed.initialize``
+    fails without them.  Safe to call once per process, before any other
     JAX operation touches devices.
     """
     kwargs = {}
@@ -70,9 +71,9 @@ def make_global_mesh(num_chain_shards: Optional[int] = None,
     """(chain, particle) mesh over ALL processes' devices.
 
     ``jax.devices()`` is the global device list after
-    :func:`initialize_distributed`; the default puts every chip on the
-    chain axis (the DCN-friendly direction — zero cross-chain
-    collectives in the PMMH hot loop)."""
+    :func:`initialize_distributed`; the default puts every device on
+    the chain axis (no cross-chain collectives in the PMMH hot loop, so
+    the links between hosts carry nothing per iteration)."""
     return make_mesh(num_chain_shards, num_particle_shards,
                      devices=jax.devices())
 

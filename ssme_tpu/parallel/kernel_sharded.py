@@ -69,36 +69,24 @@ def sharded_megakernel_log_like(kmodel: KernelModel, num_particles: int,
                                 constrain=None,
                                 ess_threshold: float = 0.5,
                                 axis_name: str = CHAIN_AXIS,
-                                interpret: bool = False,
-                                resampler: str = "systematic",
-                                metropolis_iters: int = None,
-                                metropolis_bias_budget: float = 0.5,
-                                gate_stride: int = 1):
+                                interpret: bool = False):
     """PMMH ``batched_log_like`` hook with chains sharded over ``mesh``,
     each device launching ONE megakernel on its ``C / n_shards`` local
     chains (x ``num_replicates`` replicate rows, log-mean-exp'd per
     chain as always, ``thread_pool.h:259-273``).
 
-    Same contract as :func:`megakernel_log_like` — the schedule/
-    resampler knobs (``gate_stride``, ``resampler``,
-    ``metropolis_iters``/``metropolis_bias_budget``) pass straight
-    through, so the multi-chip path keeps the single-chip levers; see
+    Same contract as :func:`megakernel_log_like`; see
     :func:`shard_batched_log_like` for the sharding semantics (which
     carry the correctness tests — only the inner hook differs here).
-    ``interpret`` runs the kernel in Pallas interpret mode; note that
-    MANY interpret programs plus shard_map in one process can deadlock
-    jax's CPU client (observed upstream fragility), so CPU-mesh tests
-    validate the wrapper with an XLA inner instead.
+    ``interpret`` runs the kernel in the Pallas interpreter; many
+    interpreted programs plus shard_map in one process can deadlock
+    jax's CPU client, so CPU-mesh tests validate the wrapper with an
+    XLA inner hook instead.
     """
     inner = megakernel_log_like(kmodel, num_particles, num_replicates,
                                 constrain=constrain,
                                 ess_threshold=ess_threshold,
-                                interpret=interpret,
-                                resampler=resampler,
-                                metropolis_iters=metropolis_iters,
-                                metropolis_bias_budget=(
-                                    metropolis_bias_budget),
-                                gate_stride=gate_stride)
+                                interpret=interpret)
     return shard_batched_log_like(inner, mesh, axis_name)
 
 

@@ -12,7 +12,7 @@ threads; here the same dataflow is a sharded ``jit`` over a
   exactly the averaging pool's broadcast/map/reduce
   (``thread_pool.h:189-215, 259-273``), minus the locks and promises.
 - **particle axis** ("tp-like"): the particle cloud of a single filter is
-  sharded over ICI.  Propagation/weighting are embarrassingly parallel;
+  sharded over devices.  Propagation/weighting are embarrassingly parallel;
   normalization and resampling induce ``psum``/all-gather collectives that
   GSPMD inserts from the sharding constraints (the prefix-sum + gather in
   :mod:`ssme_tpu.resampling` partitions cleanly).
@@ -38,7 +38,9 @@ def make_mesh(num_chain_shards: Optional[int] = None,
     """Build a (chain, particle) mesh over the available devices.
 
     Defaults: all devices along the chain axis (the embarrassingly
-    parallel direction — chains over DCN/ICI, BASELINE sharding plan).
+    parallel direction, BASELINE sharding plan).  The four cards of one
+    host are joined all to all over NVLink, so the mesh's shape follows
+    the algorithm alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

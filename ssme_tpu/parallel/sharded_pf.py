@@ -1,6 +1,6 @@
 """Particle-axis-sharded bootstrap filter via ``shard_map`` collectives.
 
-Scales a SINGLE filter's particle cloud across chips over ICI (SURVEY §5.7
+Scales a SINGLE filter's particle cloud across devices (SURVEY §5.7
 scaling axes; BASELINE sharding plan).  Propagation and weighting are
 embarrassingly parallel per shard; the two cross-particle communication
 points become explicit collectives:

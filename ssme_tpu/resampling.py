@@ -1,6 +1,6 @@
 """On-device particle resampling: multinomial / systematic / stratified.
 
-TPU-native replacement for the reference's resamplers:
+JAX replacement for the reference's resamplers:
 
 - ``pf/resamplers.h`` ``mn_resampler`` / ``mn_resamp_fast1`` (multinomial,
   plugged into the bootstrap filters as a template policy), and
@@ -32,33 +32,31 @@ from ssme_tpu.utils import normalize_log_weights
 
 def _weight_cdf(log_weights):
     w = normalize_log_weights(log_weights, axis=-1)
-    # associative_scan is ~5x faster than jnp.cumsum on TPU (measured on
-    # v5e: 51us vs 262us per step at (128, 512) inside a scan) — XLA
-    # lowers cumsum to an O(N^2) reduce-window there.
+    # associative_scan rather than jnp.cumsum: XLA may lower cumsum to a
+    # reduce-window, O(N^2) in the worst case; which is faster on the
+    # H100 is not measured.
     cdf = jax.lax.associative_scan(jnp.add, w, axis=-1)
     # force the last entry to exactly 1 so u ~ U[0,1) can never fall past it
     return cdf / cdf[..., -1:]
 
 
 # Use the dense comparison-count up to this many (N * M) elements per
-# filter; beyond it, vectorized bisection.  Measured on TPU v5e in-scan at
-# (B=128, N=M=512): matrix ~690us/step (dense compare does not fuse and
-# hits HBM) but bisection ~4.3ms/step (9 data-dependent lane gathers at
-# ~450us each) — the matrix wins until N*M outgrows HBM bandwidth.
-# (The Pallas megakernel in ssme_tpu.ops avoids both; this is the
-# generic-model path.)
+# filter; beyond it, vectorized bisection.  The dense count trades N*M
+# compares for log2(N) rounds of data-dependent gathers; where the two
+# cross on the H100 is not measured, and this threshold was chosen on
+# other hardware.  (The filter kernel in ssme_tpu.ops searches in-block;
+# this is the generic-model path.)
 _MATRIX_SEARCH_LIMIT = 1 << 20
 
 
 def searchsorted_cdf(cdf, u):
-    """``searchsorted(cdf, u, side='left')`` tuned for TPU.
+    """``searchsorted(cdf, u, side='left')`` without a sequential loop.
 
-    ``jnp.searchsorted``'s default lowering is a sequential loop
-    (~380us/step in-scan at (8, 512) measured on v5e).  For per-filter
-    problems up to ``_MATRIX_SEARCH_LIMIT`` elements the count
+    ``jnp.searchsorted``'s default lowering is a sequential loop.  For
+    per-filter problems up to ``_MATRIX_SEARCH_LIMIT`` elements the count
     formulation  idx_j = #\\{i : cdf_i < u_j\\}  (one dense compare +
-    reduction) is fastest despite materializing to HBM; larger problems
-    fall back to log2(N) rounds of batched-gather bisection.
+    reduction) is used; larger problems fall back to log2(N) rounds of
+    batched-gather bisection.
 
     ``cdf``: (..., N) sorted ascending; ``u``: (M,) or (..., M).
     Returns indices in [0, N-1]: the first i with cdf[i] >= u.
@@ -141,7 +139,7 @@ def ancestor_indices(key, log_weights, kind="systematic", num_samples=None):
 def resample(key, log_weights, tree, kind="systematic"):
     """Jointly resample every (N, ...) leaf of ``tree`` and reset weights.
 
-    The TPU analog of ``mn_resamp_states_and_params::resampLogWts``
+    The vectorized analog of ``mn_resamp_states_and_params::resampLogWts``
     (``liu_west_filter.h:90-145``): states and parameter particles are
     gathered with the *same* ancestor indices, and the returned log-weights
     are zeroed (``:144``).

@@ -1,6 +1,6 @@
 """Random-variate sampling and log-density evaluation.
 
-TPU-native replacement for the ``pf/rv_samp.h`` / ``pf/rv_eval.h`` surface
+JAX replacement for the ``pf/rv_samp.h`` / ``pf/rv_eval.h`` surface
 the reference depends on (SURVEY §2.3): every sampler is a pure function of
 a ``jax.random`` key (replacing ad-hoc clock-seeded ``std::mt19937``, e.g.
 reference ``include/ssme/utils.h:120-121``), and every evaluator is a pure,
@@ -85,7 +85,7 @@ def twice_fisher(p):
 
 
 # ---------------------------------------------------------------------------
-# multivariate normal (Cholesky-based; the MXU-friendly path)
+# multivariate normal (Cholesky-based)
 # ---------------------------------------------------------------------------
 
 def chol_with_jitter(cov, jitter=1e-8):
@@ -167,7 +167,7 @@ def poisson_logpmf(k, log_rate):
 
 def categorical_from_log_weights(key, log_weights, shape=None):
     """Sample indices proportional to ``exp(log_weights)`` (Gumbel-free,
-    underflow-safe): the TPU analog of ``rvsamp::k_gen::sample(logWts)``
+    underflow-safe): the vectorized analog of ``rvsamp::k_gen::sample(logWts)``
     (used at ``liu_west_filter.h:328,404``).
 
     Returns ``shape`` indices (default: one per weight, as k_gen does).

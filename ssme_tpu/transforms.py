@@ -1,6 +1,6 @@
 """Constrained <-> unconstrained parameter transforms with log-Jacobians.
 
-TPU-native replacement for the reference's runtime-polymorphic transform
+JAX replacement for the reference's runtime-polymorphic transform
 hierarchy and ``param::pack`` container
 (reference: ``include/ssme/parameters.h:27-459`` for the four scalar
 bijections, ``:151-631`` for the pack).
@@ -136,7 +136,7 @@ def log_det_jacobian(trans_params: jnp.ndarray, codes: jnp.ndarray) -> jnp.ndarr
 class ParamTransform:
     """Static description of a parameter vector's per-element bijections.
 
-    The TPU-native analog of the reference ``param::pack``'s transform list
+    The JAX analog of the reference ``param::pack``'s transform list
     (``parameters.h:151-631``): the *values* live in plain jnp arrays (in
     the unconstrained space, as in the reference which stores transformed
     values, ``parameters.h:159``), while this object carries only static

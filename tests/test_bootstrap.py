@@ -125,3 +125,18 @@ def test_sim_future_obs_shapes_and_feedback():
                             last_obs=jnp.zeros((1,)))
     assert obs.shape == (5, 64, 1)
     assert np.all(np.isfinite(np.asarray(obs)))
+
+
+@pytest.mark.parametrize("ess_threshold", [None, 0.5])
+def test_replicated_bank_matches_kalman(lg_data, ess_threshold):
+    """The XLA filter bank behind bench.py's xla impl (chains x
+    replicates, log-mean-exp per chain) estimates the exact Kalman
+    evidence under both schedules."""
+    from ssme_tpu.filters import replicated_log_like_fn
+
+    model, ys, kalman_lls, _ = lg_data
+    ll = jax.jit(replicated_log_like_fn(model, 512, 4,
+                                        ess_threshold=ess_threshold))
+    got = np.asarray(ll(jax.random.key(3), jnp.stack([PARAMS_LG] * 2), ys))
+    assert got.shape == (2,)
+    np.testing.assert_allclose(got, float(jnp.sum(kalman_lls)), atol=0.5)

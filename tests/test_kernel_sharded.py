@@ -4,8 +4,8 @@ The wrapper's sharding mechanics are validated EXACTLY with the XLA
 inner hook (``replicated_log_like_fn``): the sharded result must equal
 per-shard inner calls with ``fold_in(key, shard_index)``, concatenated.
 The megakernel variant shares this exact wrapper code path (only the
-inner hook differs); the kernel itself is validated on hardware
-(examples/validate_tpu.py).  Pallas-interpret-inside-shard_map is
+inner hook differs); the kernel itself is validated on the GPU by
+``chip_smoke.py --four``.  Pallas-interpret-inside-shard_map is
 deliberately NOT exercised here: many interpret programs + shard_map in
 one pytest process can deadlock jax's CPU client.
 """

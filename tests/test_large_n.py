@@ -1,9 +1,8 @@
 """Large-N bridge + f32 log-weight stability (VERDICT r1 #5; SURVEY §7
 "float32 vs float64" hard part).
 
-The megakernel path is capped at MAX_KERNEL_PARTICLES by its in-VMEM
-n^2 resampling matrices (empirically confirmed: n=2048 fails TPU
-compilation); the generic XLA path has no cap.  These tests pin down
+The kernel path is capped at MAX_KERNEL_PARTICLES by the registers a
+thread has for the particle cloud; the generic XLA path has no cap.  These tests pin down
 (a) that the bridge between them works — ``megakernel_log_like``
 dispatches to the XLA filter bank above the cap — and (b) that the
 generic path's f32 log-sum-exp accumulation is accurate at the 1e5+
@@ -59,7 +58,7 @@ def test_bootstrap_filter_1e5_particles_matches_kalman():
 
 def test_megakernel_log_like_dispatches_above_cap():
     """Above MAX_KERNEL_PARTICLES the hook transparently runs the
-    generic XLA path (works on CPU — no pallas) with the same
+    generic XLA path (works on CPU — no kernel) with the same
     (chains, replicates) semantics."""
     n_big = 2 * MAX_KERNEL_PARTICLES
     ll = megakernel_log_like(svol_kernel_model(), num_particles=n_big,

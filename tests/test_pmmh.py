@@ -154,8 +154,7 @@ def test_sample_streaming_and_resume(tmp_path, lg_setup):
 def test_reset_adaptation_warm_restart(lg_setup):
     """reset_adaptation zeroes the moments/accept MA and the iteration
     counter while KEEPING positions, likelihoods, and Ct — and the
-    chain keeps running from there (the burn-in warm-restart recipe,
-    RESULTS.md round 4)."""
+    chain keeps running from there (the burn-in warm-restart recipe)."""
     model, pmmh, start, ys = lg_setup
     state = pmmh.init(jax.random.key(11), start, ys, num_chains=2)
     res = pmmh.run_from(state, 12, ys)
@@ -222,7 +221,7 @@ def test_run_from_warns_inside_jit_trace(lg_setup, monkeypatch):
     model, pmmh, start, ys = lg_setup
     st0 = pmmh.init(jax.random.key(9), start, ys, num_chains=1)
     monkeypatch.setattr(pmmh_mod, "MAX_SCAN_ITERS", 6)
-    with pytest.warns(UserWarning, match="worker-crash guard"):
+    with pytest.warns(UserWarning, match="chunking"):
         out = jax.jit(lambda st: pmmh.run_from(st, 15, ys))(st0)
     assert out.samples.shape[0] == 15
 

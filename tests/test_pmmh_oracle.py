@@ -39,10 +39,9 @@ def _simulate(seed):
 
 @pytest.mark.slow
 # the whole 1500-iteration run is jitted deliberately (single compiled
-# program = the fastest CPU path); the worker-crash guard warns that it
-# cannot chunk under tracing, which is exactly right and harmless off
-# the TPU rig
-@pytest.mark.filterwarnings("ignore:run_from.*worker-crash guard")
+# program = the fastest CPU path); run_from warns that it cannot chunk
+# under tracing, which is exactly right and harmless here
+@pytest.mark.filterwarnings("ignore:run_from.*chunking")
 def test_pmmh_matches_float64_oracle():
     ys = _simulate(7)
     model = svol.make_model()

@@ -1,8 +1,8 @@
 """Opt-in SPY accuracy gate at reduced scale (VERDICT r3 item 2).
 
 The full-T gate lives in ``examples/accuracy_gate.py`` (float64 oracle
-vs both kernel engines on all 3084 observations; results recorded in
-RESULTS.md / data/accuracy_gate.json).  This test runs the same
+vs both kernel schedules on all 3084 observations; it needs a GPU).
+This test runs the same
 oracle-vs-engine comparison on a T=600 SPY prefix so the REAL-data
 accuracy loop is also exercisable under pytest.  Opt-in because the
 float64 oracle costs minutes of pure numpy:
